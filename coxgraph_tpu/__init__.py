@@ -1,4 +1,4 @@
-"""coxgraph_tpu — TPU-native collaborative dense SLAM framework.
+"""coxgraph_tpu — collaborative dense SLAM framework on JAX/XLA.
 
 A brand-new JAX/XLA/Pallas framework providing the capabilities of the
 reference coxgraph system (multi-robot collaborative dense scene

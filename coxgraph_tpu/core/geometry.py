@@ -24,6 +24,9 @@ import jax.numpy as jnp
 Array = jax.Array
 
 _EPS = 1e-8
+# f32 contractions ask for full f32: the default may run in TF32 (about
+# three decimal digits) on GPU tensor cores
+_HI = jax.lax.Precision.HIGHEST
 
 
 def identity(dtype=jnp.float32) -> Array:
@@ -221,8 +224,8 @@ def se3_exp(xi: Array) -> Array:
     W = _skew(w)
     Vv = (
         v
-        + A * jnp.einsum("...ij,...j->...i", W, v)
-        + B * jnp.einsum("...ij,...jk,...k->...i", W, W, v)
+        + A * jnp.einsum("...ij,...j->...i", W, v, precision=_HI)
+        + B * jnp.einsum("...ij,...jk,...k->...i", W, W, v, precision=_HI)
     )
     return make(q, Vv)
 
@@ -245,8 +248,9 @@ def se3_log(T: Array) -> Array:
     t = translation(T)
     v = (
         t
-        - 0.5 * jnp.einsum("...ij,...j->...i", W, t)
-        + cot_term * jnp.einsum("...ij,...jk,...k->...i", W, W, t)
+        - 0.5 * jnp.einsum("...ij,...j->...i", W, t, precision=_HI)
+        + cot_term * jnp.einsum("...ij,...jk,...k->...i", W, W, t,
+                                precision=_HI)
     )
     return jnp.concatenate([w, v], axis=-1)
 
@@ -362,8 +366,8 @@ def identity_np(dtype=None):
 
 
 def compose_np(a, b):
-    """NumPy twin of compose() for host-side control code (remote-TPU
-    rule: no eager device ops in bookkeeping loops — utils/hostops)."""
+    """NumPy twin of compose() for host-side control code (no eager
+    device ops in bookkeeping loops — utils/hostops)."""
     import numpy as np
     a = np.asarray(a)
     b = np.asarray(b)
@@ -394,10 +398,9 @@ def transform_points_np(T, p):
 
 
 def lookup_pose_np(stamps, poses, t: float):
-    """Pure-NumPy lookup_pose for host-side control code — on
-    remote-attached TPUs every eager device op with a new shape/constant
-    triggers a fresh ~20 s compile (see utils/hostops), so server-side
-    bookkeeping interpolates on the host."""
+    """Pure-NumPy lookup_pose for host-side control code — every eager
+    device op with a new shape/constant compiles a fresh program (see
+    utils/hostops), so server-side bookkeeping interpolates on the host."""
     import numpy as np
 
     stamps = np.asarray(stamps)

@@ -2,7 +2,7 @@
 
 The reference stores voxels in hash-indexed 16³ blocks
 (voxblox ``Layer<TsdfVoxel>``; used at e.g. map_server.h:88-94,
-msg_converter.h:48-50). A CPU hash map does not jit, so the TPU design is:
+msg_converter.h:48-50). A CPU hash map does not jit, so the accelerator design is:
 
   * a fixed-capacity **block pool**: dense FLAT arrays ``(max_blocks,
     vps³)`` for sdf / weight (color: ``(max_blocks, 3·vps³)`` planar) —
@@ -13,7 +13,7 @@ msg_converter.h:48-50). A CPU hash map does not jit, so the TPU design is:
     0.05–0.10 m voxels a 64³ grid spans 51–102 m — ample for the reference's
     scenes — and costs only 1 MiB, turning every hash lookup into a single
     gather and every allocation into a scatter + prefix-sum. This is the
-    TPU-idiomatic replacement for voxblox's AnyIndexHashMapType.
+    jit-friendly replacement for voxblox's AnyIndexHashMapType.
 
 Block coordinates are centered: valid range is [-G/2, G/2). Everything is a
 pytree of arrays; all ops are pure functions usable inside jit/vmap/shard_map.
@@ -61,11 +61,9 @@ class TsdfLayer:
     sdf/weight: (max_blocks, vps³) f32, FLAT voxel rows in C-order
     (ix·vps² + iy·vps + iz). color: (max_blocks, 3·vps³) f32 in [0,1],
     channel-PLANAR rows [r(vps³), g, b]. The pools are stored flat because
-    layouts: a canonical (mb, vps, vps, vps) pool tiles its (vps, vps)
-    minor dims — at vps=16 the 16-lane minor pads to 128 (8x HBM) and
-    every reshape to the flat rows the frame kernel consumes becomes a
-    full-pool relayout copy (measured ~7 ms/frame at reference scale: the
-    dominant frame cost). A (..., 3)-trailing color pool is worse (42x).
+    every consumer (integrator, mesher, ESDF, merge) addresses whole
+    voxel rows: one layout for all of them means no full-pool relayout
+    copy at a jit or scan boundary.
     Spatially-indexed consumers (mesher, ESDF, merge) reshape gathered
     rows or whole pools to (.., vps, vps, vps) views locally at
     control rate.
@@ -204,9 +202,9 @@ def allocate_and_slots(spec: VoxelGridSpec, flat_index: Array,
     occurrences, and top_k-compact the ≤max_touched smallest unique ids.
     Earlier formulations scattered a G³ touched bitmap (XLA lowers the
     duplicate-index scatter via a sort of the N candidates) and then ran
-    TWO G³-sized top_k passes — at the bench operating point
-    (N≈58k, G³=262k) that was ~0.85 ms/frame; two N-sized sorts are ~4x
-    cheaper. New cells are detected by gathering flat_index at the K
+    TWO G³-sized top_k passes — at the bench operating point N≈58k
+    candidates against G³=262k cells, so two N-sized sorts touch far less
+    data. New cells are detected by gathering flat_index at the K
     compacted cells (a K-gather instead of a second G³ selection), so
     allocation caps at max_touched NEW cells among the K smallest touched
     — overflow cells stay unallocated and are picked up by later frames,
@@ -218,45 +216,22 @@ def allocate_and_slots(spec: VoxelGridSpec, flat_index: Array,
     occurrences of the sorted candidate ids), and a cell maps to exactly
     one pool slot. Downstream pool scatters rely on this to pass
     ``unique_indices=True`` (XLA skips the sort-based duplicate-combine
-    lowering); violating it is silent pool corruption. Guarded by a
-    debug check in the consumers under jax.debug_nans-style opt-in:
-    see ops.tsdf.integrate_frame_stacked_impl."""
-    t_cells = candidate_cells(spec, grid_slots, valid, max_touched)
-    return allocate_cells(spec, flat_index, block_coords, num_blocks,
-                          t_cells)
-
-
-def candidate_cells(spec: VoxelGridSpec, grid_slots: Array, valid: Array,
-                    max_touched: int) -> Array:
-    """Pure candidate compaction half of allocate_and_slots: sort +
-    first-occurrence dedup + top_k of the K smallest unique cell ids →
-    t_cells (K,) ascending, g³-padded. STATELESS and per-frame
-    independent — the windowed integrator vmaps it over all frames in
-    one batched op (the sorts/top_k were the dominant cost of the
-    per-frame allocation scan; docs/PERFORMANCE.md round 4)."""
+    lowering); violating it is silent pool corruption. Guarded by an
+    opt-in debug check (COXGRAPH_DEBUG_CHECKS=1) in ops.tsdf._alloc_pass."""
     g3 = spec.grid_dim ** 3
     K = max_touched
 
+    # candidate compaction: sort + first-occurrence dedup + top_k of the
+    # K smallest unique cell ids → t_cells (K,) ascending, g3-padded
     ids = jnp.sort(jnp.where(valid, grid_slots, g3))      # (N,) ascending
     uniq = jnp.concatenate([ids[:1] < g3,
                             (ids[1:] != ids[:-1]) & (ids[1:] < g3)])
-    # K smallest unique cell ids, ascending, g3-padded (negation trick
-    # keeps top_k = "smallest"; tiny frames can have fewer candidates
-    # than K — pad the selection back out)
+    # negation trick keeps top_k = "smallest"; tiny frames can have fewer
+    # candidates than K — pad the selection back out
     k_eff = min(K, ids.shape[0])
     t_cells = -jax.lax.top_k(jnp.where(uniq, -ids, -g3), k_eff)[0]
     if k_eff < K:
         t_cells = jnp.pad(t_cells, (0, K - k_eff), constant_values=g3)
-    return t_cells
-
-
-def allocate_cells(spec: VoxelGridSpec, flat_index: Array,
-                   block_coords: Array, num_blocks: Array, t_cells: Array):
-    """Sequential allocation half of allocate_and_slots (small K-sized
-    ops only): gather the block index at the compacted cells, assign
-    consecutive pool slots to new ones, return per-call touched slots.
-    → (flat_index, block_coords, num_blocks, slots (K,), mask (K,))."""
-    g3 = spec.grid_dim ** 3
     t_mask = t_cells < g3
 
     # new-cell detection: K-gather of the block index at the compacted
@@ -332,10 +307,8 @@ def voxel_lookup(spec: VoxelGridSpec, layer: TsdfLayer, v: Array):
     """Global voxel index (...,3) → (sdf, weight, valid_mask).
 
     Lookups for MISSING blocks get UNIQUE spread dummy addresses, never
-    a clamped constant: clamping every dead point to pool row 0 made the
-    merge's trilinear sampling gather-unit-serialized at ~24 ns/element
-    (round-4 trace — duplicate-address gathers serialize, the same rule
-    as ops/tsdf._update_xla). One flat-view gather per field instead of
+    a clamped constant, so dead points do not all hit pool row 0 (the
+    same rule as ops/tsdf._update_pass). One flat-view gather per field instead of
     a 2-axis gather."""
     b, l = voxel_to_block(spec, v)
     idx = lookup_block(spec, layer, b)

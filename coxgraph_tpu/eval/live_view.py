@@ -1,7 +1,7 @@
 """Live map visualization for headless deployments — the reference's
 Open3D live windows (client combined-mesh view coxgraph_client.h:177-214,
 server visualizer windows server_visualizer.h:108-120) re-designed for a
-TPU pod: no display server exists, so the "window" is a self-contained
+headless accelerator host: no display server exists, so the "window" is a self-contained
 HTML viewer file the server rewrites on every update and any browser
 (laptop over ssh port-forward / sshfs) auto-refreshes.
 

@@ -2,7 +2,7 @@
 
 The reference validates end-to-end via Gazebo MAV worlds and CARLA RGB-D
 scripts (SURVEY.md §2.6; coxgraph_sim/launch/experiments/*,
-scripts/carla_rgbd_ego.py). The TPU build replaces them with an analytic
+scripts/carla_rgbd_ego.py). This build replaces them with an analytic
 SDF scene rendered by sphere tracing — fully jittable, exact ground truth
 for both depth and the expected TSDF, and fast enough to generate clips
 on-device.
@@ -129,7 +129,8 @@ def render_depth(scene: Scene, intr: PinholeIntrinsics, T_world_cam: Array,
     dirs_cam = _ray_dirs(intr)
     R = geo.quat_to_matrix(geo.rotation(T_world_cam))
     origin = geo.translation(T_world_cam)
-    dirs = jnp.einsum("ij,hwj->hwi", R, dirs_cam)
+    dirs = jnp.einsum("ij,hwj->hwi", R, dirs_cam,
+                      precision=jax.lax.Precision.HIGHEST)
 
     def step(carry, _):
         t, hit = carry

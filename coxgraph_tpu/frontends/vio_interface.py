@@ -4,7 +4,7 @@ caching; loop_closure_publisher.h routing; tf_publisher.h odometry out).
 
 In the reference this header-only library is compiled INTO external SLAM
 binaries and talks ROS; here it is the Python facade an odometry frontend
-(or the synthetic replay driver) uses to feed the TPU pipeline. It routes:
+(or the synthetic replay driver) uses to feed the device pipeline. It routes:
 pose updates → the robot's mapper step, cross-robot loop closures →
 server.map_fusion, same-robot ones → the same path (the server forwards
 them back as local constraints), and caches need-to-fuse answers.

@@ -10,7 +10,7 @@ map_server.cpp:109-117), and publishes each finished submap's mesh with a
 keyframe-filtered trajectory (map_server.cpp:119-152; keyframe stamps
 tracked from the `keyframe_pose` topic, map_server.h:149-156).
 
-TPU design: no topics or timers — the merged TSDF/ESDF are cached device
+Accelerator design: no topics or timers — the merged TSDF/ESDF are cached device
 arrays invalidated by pose updates and rollovers; "publishing" is returning
 arrays (or wire messages for the bus). The ESDF batch update is the jitted
 masked-Jacobi sweep from ops/esdf.py; traversability is a fixed-capacity

@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The reference's runtime is C++ throughout; here the TPU compute path is
+The reference's runtime is C++ throughout; here the device compute path is
 JAX/XLA and the host-side runtime pieces that benefit from native code —
 the compact wire serializer (bandwidth-critical, SURVEY.md §5.8) — are
 C++ compiled on first use into native/build/.

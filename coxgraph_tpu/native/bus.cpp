@@ -1,4 +1,4 @@
-// Host-level message bus — the TPU framework's stand-in for the
+// Host-level message bus — this framework's stand-in for the
 // reference's ROS1 TCPROS substrate (SURVEY.md §5.8): latched pub/sub
 // topics for streams (timelines, pose updates, meshes) and synchronous
 // request/reply services for bulk pulls (submap requests,

@@ -4,12 +4,12 @@ to external ORB/BRISK + BoW + RANSAC systems (corbslam /
 pose_graph_backend: launch/utils/pose_graph_backend.launch:13-60
 ``bow_voc``, ``loop_candidate_min_score``, SAC parameters; SURVEY.md §2.9).
 
-TPU-first design — everything dense, fixed-capacity, batched:
-  * Harris corners (Sobel + structure tensor on the VPU), 3×3 max-pool NMS,
+Accelerator design — everything dense, fixed-capacity, batched:
+  * Harris corners (Sobel + structure tensor, elementwise), 3×3 max-pool NMS,
     top-K selection;
   * upright BRIEF-256 binary descriptors packed into 8 uint32 words;
   * brute-force Hamming matching (XOR + vectorized popcount) with mutual
-    nearest + ratio test — on TPU, brute force over whole keyframe
+    nearest + ratio test — on the device, brute force over whole keyframe
     databases replaces the BoW inverted index;
   * batched 3D-3D RANSAC: hundreds of Kabsch hypotheses solved in parallel
     by vmap'd SVD, inliers counted densely, final refit on the inlier set.
@@ -29,6 +29,7 @@ from ..core import geometry as geo
 from ..frontends.synthetic import PinholeIntrinsics
 
 Array = jax.Array
+_HI = jax.lax.Precision.HIGHEST  # full f32, never TF32
 
 _N_BITS = 256
 _N_WORDS = _N_BITS // 32
@@ -78,16 +79,16 @@ def _box_blur(x: Array, r: int = 1) -> Array:
     k = 2 * r + 1
     w = jnp.ones((k, k), x.dtype) / (k * k)
     return jax.lax.conv_general_dilated(
-        x[None, None], w[None, None], (1, 1), "SAME")[0, 0]
+        x[None, None], w[None, None], (1, 1), "SAME", precision=_HI)[0, 0]
 
 
 def _sobel(x: Array) -> Tuple[Array, Array]:
     kx = jnp.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], x.dtype) / 8.0
     ky = kx.T
     gx = jax.lax.conv_general_dilated(x[None, None], kx[None, None], (1, 1),
-                                      "SAME")[0, 0]
+                                      "SAME", precision=_HI)[0, 0]
     gy = jax.lax.conv_general_dilated(x[None, None], ky[None, None], (1, 1),
-                                      "SAME")[0, 0]
+                                      "SAME", precision=_HI)[0, 0]
     return gx, gy
 
 
@@ -198,14 +199,11 @@ def _unpack_pm1(d: Array) -> Array:
 def hamming_matrix(da: Array, db: Array) -> Array:
     """(Ka,8)×(Kb,8) uint32 → (Ka,Kb) int32 Hamming distances.
 
-    MXU form: with descriptors unpacked to ±1 bit vectors,
+    Matmul form: with descriptors unpacked to ±1 bit vectors,
     ``dot(a, b) = nbits − 2·hamming``, so the whole distance matrix is
-    one 256-deep matmul instead of Ka·Kb·8 xor+popcount chains on the
-    VPU (the popcount lowering is ~20 VPU ops per word — it was 110 ms
-    of the 119 ms fused match+verify batch at the endurance operating
-    point; the matmul form measures ~4× faster, tools/profile_detect.py).
-    Exact: ±1 is exact in bf16, the MXU accumulates in f32, and
-    |dot| ≤ 256 is integer-exact there."""
+    one 256-deep bf16 matmul on the tensor cores instead of Ka·Kb·8
+    xor+popcount chains. Exact: ±1 is exact in bf16, the product
+    accumulates in f32, and |dot| ≤ 256 is integer-exact there."""
     nbits = _N_WORDS * 32
     a = _unpack_pm1(da)
     b = _unpack_pm1(db)
@@ -243,12 +241,12 @@ def _kabsch(pa: Array, pb: Array, w: Array) -> Array:
     ws = jnp.maximum(w.sum(), 1e-6)
     ca = (w[:, None] * pa).sum(0) / ws
     cb = (w[:, None] * pb).sum(0) / ws
-    A = (w[:, None] * (pb - cb)).T @ (pa - ca)
+    A = jnp.matmul((w[:, None] * (pb - cb)).T, pa - ca, precision=_HI)
     U, _, Vt = jnp.linalg.svd(A)
-    d = jnp.sign(jnp.linalg.det(U @ Vt))
+    d = jnp.sign(jnp.linalg.det(jnp.matmul(U, Vt, precision=_HI)))
     S = jnp.diag(jnp.array([1.0, 1.0, 1.0]) .at[2].set(d))
-    R = U @ S @ Vt
-    t = cb - R @ ca
+    R = jnp.matmul(jnp.matmul(U, S, precision=_HI), Vt, precision=_HI)
+    t = cb - jnp.matmul(R, ca, precision=_HI)
     return geo.make(geo.matrix_to_quat(R), t)
 
 
@@ -332,7 +330,7 @@ def estimate_relative_pose(kp_a: Keypoints, kp_b: Keypoints,
     n = jnp.maximum(w.sum(), 1.0)
     mu = (w[:, None] * pa).sum(0) / n
     d = (pa - mu) * w[:, None]
-    cov = d.T @ d / n
+    cov = jnp.matmul(d.T, d, precision=_HI) / n
     evals = jnp.linalg.eigvalsh(cov)          # ascending
     spread = jnp.sqrt(jnp.maximum(evals[1], 0.0))
     return geo.inverse(res.T_b_a), res.n_inliers, spread

@@ -3,7 +3,7 @@
 server-side client-map reassembly; map_server.cpp:66-70 client merged-map
 rebuild; msg_converter.h:48-50).
 
-TPU design: resampling, not voxel-list iteration. Destination voxel centers
+Accelerator design: resampling, not voxel-list iteration. Destination voxel centers
 of every touched block are transformed into the source frame and the source
 TSDF is sampled trilinearly; weighted running averages fuse the result into
 the destination pool. Source blocks conservatively allocate a 3³
@@ -71,10 +71,6 @@ def _packed_trilinear(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
         n *= d
     spread = jax.lax.broadcasted_iota(
         jnp.int32, (n, 1), 0).squeeze(-1).reshape(p.shape[:-1]) % total
-    # NOTE: replacing the 8 per-corner lookup_block gathers with one
-    # lax.gather of (2,2,2) grid slices was tried and REVERTED: the
-    # slice-gather's s32[P,2,2,2] output takes a T(2,128) layout — 64×
-    # padding, 16 GB HBM, compile-time OOM (round 4).
     sdf_acc = jnp.zeros(p.shape[:-1], jnp.float32)
     w_acc = jnp.zeros_like(sdf_acc)
     valid = jnp.ones(p.shape[:-1], jnp.bool_)
@@ -114,8 +110,7 @@ def count_touched_dst_blocks(dst_spec: vx.VoxelGridSpec,
     One tiny dispatch; merge_layer_into_sized uses the host readback to
     bucket max_touched to the actual need — the merge's trilinear
     gathers scale with max_touched·v³ whether the rows are live or
-    padding (measured on the v5e: 3.1 s/merge at the 4096 default vs
-    0.69 s at 1024 for a 313-block submap, identical result)."""
+    padding (identical result)."""
     cand, valid = _candidate_dst_blocks(dst_spec, src_spec, src, T_dst_src)
     g3 = dst_spec.grid_dim ** 3
     slot = vx.block_grid_slot(dst_spec, cand)
@@ -133,8 +128,7 @@ def merge_layer_into_sized(spec: vx.VoxelGridSpec, dst: vx.TsdfLayer,
     two over the counted candidate cover, floor ``min_bucket``) — the
     control-rate merge entry point for host loops (final global mesh,
     merged client maps). Costs one extra scalar readback per merge and
-    cuts the dominant gather work ~linearly (4.6× on the endurance-run
-    shapes)."""
+    cuts the dominant gather work ~linearly with the padding removed."""
     import numpy as np
 
     n = int(np.asarray(count_touched_dst_blocks(
@@ -162,10 +156,9 @@ def merge_layer_into(spec: vx.VoxelGridSpec, dst: vx.TsdfLayer,
                                            max_touched)
     K = slots.shape[0]
     # (sdf, weight) packed as two bf16 in one u32 so the trilinear
-    # corner fetch is 8 gathers instead of 16 — the merge is
-    # gather-count-bound (~200 ms per 8.4 M-element gather on the v5e,
-    # round-4 trace) and bf16 sdf error (≤0.4 % of truncation) is far
-    # below voxel scale. One full-pool pack pass ≈ 0.1 ms.
+    # corner fetch is 8 gathers instead of 16 — the merge's cost is its
+    # gathers, and bf16 sdf error (≤0.4 % of truncation) is far below
+    # voxel scale. One full-pool pack pass.
     s16 = jax.lax.bitcast_convert_type(
         src.sdf.astype(jnp.bfloat16), jnp.uint16).astype(jnp.uint32)
     w16 = jax.lax.bitcast_convert_type(
@@ -174,8 +167,6 @@ def merge_layer_into(spec: vx.VoxelGridSpec, dst: vx.TsdfLayer,
     # spread DEAD rows across distinct pool rows / block coords: clamped
     # duplicates made every masked row sample and write the same
     # addresses — duplicate-address gathers/scatters serialize
-    # (docs/PERFORMANCE.md rule #4; the merge ran gather-bound at
-    # ~24 ns/element before this)
     ridx = jnp.arange(K, dtype=jnp.int32)
     slots = jnp.where(slot_mask, slots, ridx % dst.sdf.shape[0])
     gd = spec.grid_dim

@@ -6,7 +6,7 @@ map_server.cpp:119-152). The full-layer `ops.mesh.extract_mesh` is the
 right shape for end-of-run export; live publishing must only pay for
 what changed (VERDICT r3 Missing #1).
 
-TPU design: block chunks are the re-mesh unit. The integrators OR the
+Accelerator design: block chunks are the re-mesh unit. The integrators OR the
 slots they update into `MapperState.mesh_dirty` (free device bitmap);
 `mesh.dirty_block_chunks` expands that to the mesh-DEPENDENT set (a
 changed block invalidates its -{0,1}³ coordinate predecessors, whose

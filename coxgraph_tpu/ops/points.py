@@ -8,7 +8,7 @@ accepts ARBITRARY unordered pointclouds — lidar scans, recovered mesh
 points, clouds with no pinhole model — which the reference's L1 consumes
 natively on its ``pointcloud`` topic.
 
-TPU-first design (no per-ray casting, no threads):
+Accelerator design (no per-ray casting, no threads):
 
   1. **Bundling** (the voxblox "merged" trade): points are grouped by
      containing voxel via a lexicographic sort of (block-cell, local

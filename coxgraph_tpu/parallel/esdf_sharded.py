@@ -1,5 +1,5 @@
 """Block-sharded ESDF propagation over a device mesh — the spatial
-scaling axis of SURVEY.md §5.7: as the map grows past one chip's HBM, its
+scaling axis of SURVEY.md §5.7: as the map grows past one device's memory, its
 voxel blocks shard across devices as x-slabs of the block grid, the
 masked-Jacobi ESDF sweeps (ops/esdf.py) run on every shard in parallel,
 and only the slab-boundary block faces move over the ICI (ppermute) each

@@ -1,4 +1,4 @@
-"""Multi-robot SPMD over a device mesh — the TPU replacement for the
+"""Multi-robot SPMD over a device mesh — the device-mesh replacement for the
 reference's per-robot ROS processes (SURVEY.md §2 parallelism inventory:
 robot/data parallelism = N independent client pipelines,
 launch/cvg/run_experiment_cvg.launch:5-7; central Ceres solve

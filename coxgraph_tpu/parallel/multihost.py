@@ -37,8 +37,8 @@ def initialize(coordinator_address: str, num_processes: int,
                local_cpu_devices: Optional[int] = None) -> None:
     """jax.distributed bring-up for one process of a multi-host
     deployment. ``local_cpu_devices`` forces the CPU backend with that
-    many virtual devices (test/bring-up path; real TPU hosts leave it
-    None and contribute their chips). Must run before any other JAX
+    many virtual devices (test/bring-up path; real accelerator hosts
+    leave it None and contribute their devices). Must run before any other JAX
     call in the process."""
     if local_cpu_devices is not None:
         flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
@@ -154,9 +154,9 @@ def fleet_optimize_comm_bytes(cfg, mesh: Mesh, fleet, inter_robot,
     """Per-optimize collective payload of `fleet.fleet_optimize` on this
     mesh: lower+compile (cache-friendly) and account the HLO →
     {"per_iteration": {kind: bytes}, "per_optimize": total bytes across
-    the solver's GN iterations}. This is the DCN budget of one
+    the solver's GN iterations}. This is the network budget of one
     distributed solve when the mesh spans hosts (BASELINE 2-host row
-    methodology; see docs/PERFORMANCE.md)."""
+    methodology)."""
     from . import fleet as fl
 
     compiled = fl.fleet_optimize.lower(

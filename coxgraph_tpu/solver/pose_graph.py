@@ -4,12 +4,13 @@ voxgraph PoseGraph with odometry / loop-closure / submap-relative-pose /
 registration constraints; two-phase optimize at
 pose_graph_interface.cpp:32-49).
 
-TPU-first design: constraints live in fixed-capacity struct-of-array pools
+Accelerator design: constraints live in fixed-capacity struct-of-array pools
 with validity masks; residuals and Jacobians are evaluated for ALL
 constraints at once with vmap'd autodiff; the normal equations are
 assembled into a dense (6N, 6N) system by scatter-add and solved with a
-damped Cholesky factorization on the MXU. Pose-graph sizes in this domain
-(hundreds of submaps) make the dense Hessian the *fast* choice on TPU —
+damped Cholesky factorization. Pose-graph sizes in this domain
+(hundreds of submaps) make the dense Hessian the *fast* choice on an
+accelerator —
 sparse factorization is replaced by hardware-friendly dense algebra; the
 multi-host Schur-complement split lives in `parallel/`.
 
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 from ..core import geometry as geo
 
 Array = jax.Array
+_HI = jax.lax.Precision.HIGHEST  # full f32, never TF32
 
 
 @jax.tree_util.register_dataclass
@@ -148,7 +150,7 @@ def _constraint_residual(Ti: Array, Tj: Array, T_meas: Array,
                          sqrt_info: Array) -> Array:
     """Whitened 6-residual of one relative-pose constraint."""
     err = geo.compose(geo.inverse(T_meas), geo.compose(geo.inverse(Ti), Tj))
-    return sqrt_info @ geo.se3_log(err)
+    return jnp.matmul(sqrt_info, geo.se3_log(err), precision=_HI)
 
 
 def _residual_at_delta(di: Array, dj: Array, Ti: Array, Tj: Array,
@@ -225,15 +227,15 @@ def _build_normal_equations(poses: Array, c: RelPoseConstraints,
     # block assembly by scatter-add into (N,6,N,6)
     H = jnp.zeros((n, 6, n, 6))
     b = jnp.zeros((n, 6))
-    Hii = jnp.einsum("mab,mac->mbc", Ji, Ji)
-    Hjj = jnp.einsum("mab,mac->mbc", Jj, Jj)
-    Hij = jnp.einsum("mab,mac->mbc", Ji, Jj)
+    Hii = jnp.einsum("mab,mac->mbc", Ji, Ji, precision=_HI)
+    Hjj = jnp.einsum("mab,mac->mbc", Jj, Jj, precision=_HI)
+    Hij = jnp.einsum("mab,mac->mbc", Ji, Jj, precision=_HI)
     H = H.at[c.i, :, c.i, :].add(Hii)
     H = H.at[c.j, :, c.j, :].add(Hjj)
     H = H.at[c.i, :, c.j, :].add(Hij)
     H = H.at[c.j, :, c.i, :].add(jnp.swapaxes(Hij, -1, -2))
-    b = b.at[c.i].add(jnp.einsum("mab,ma->mb", Ji, r))
-    b = b.at[c.j].add(jnp.einsum("mab,ma->mb", Jj, r))
+    b = b.at[c.i].add(jnp.einsum("mab,ma->mb", Ji, r, precision=_HI))
+    b = b.at[c.j].add(jnp.einsum("mab,ma->mb", Jj, r, precision=_HI))
 
     cost = 0.5 * jnp.sum(r * r)
 
@@ -250,7 +252,8 @@ def _build_normal_equations(poses: Array, c: RelPoseConstraints,
         Jh = jnp.where(h.valid[:, None], Jh, 0.0)
         if cfg.yaw_only:
             Jh = Jh * jnp.array([0.0, 0.0, 1.0, 1.0, 1.0, 1.0])[None, :]
-        H = H.at[h.i, :, h.i, :].add(jnp.einsum("ma,mb->mab", Jh, Jh))
+        H = H.at[h.i, :, h.i, :].add(
+            jnp.einsum("ma,mb->mab", Jh, Jh, precision=_HI))
         b = b.at[h.i].add(Jh * rh[:, None])
         cost = cost + 0.5 * jnp.sum(rh * rh)
 

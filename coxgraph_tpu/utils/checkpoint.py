@@ -1,7 +1,8 @@
 """Checkpoint/restore of mapper and server state — the reference has NO
 online checkpointing (persistence is end-of-run export only, SURVEY.md
-§5.4); the TPU build makes submap-collection + pose-graph state a
-first-class checkpoint since pod preemption is routine.
+§5.4); this build makes submap-collection + pose-graph state a
+first-class checkpoint since preemption of shared accelerator hosts is
+routine.
 
 Format: one .npz per checkpoint holding every pytree leaf keyed by its
 tree path, plus a JSON sidecar of host-side (non-array) state. Restores

@@ -57,8 +57,8 @@ def main():
     odom = syn.noisy_odometry(jax.random.PRNGKey(0), traj,
                               rot_std=0.004, trans_std=0.01)
 
-    # host copies — per-index eager device reads compile per index on
-    # remote TPUs (utils/hostops)
+    # host copies — per-index eager device reads compile per index
+    # (utils/hostops)
     traj_np = np.asarray(traj)
     odom_np = np.asarray(odom)
     timers = runtime.Timers()

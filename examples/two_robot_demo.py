@@ -3,15 +3,16 @@ experiment equivalent (BASELINE.json config 4): two robots with separate
 drifting odometry frames map overlapping halves of a scene; the loop
 detector finds cross-robot correspondences automatically; the fusion
 server aligns the client frames, runs the two-phase global solve, and
-exports one globally consistent mesh + per-client trajectories.
+exports one globally consistent mesh + per-client trajectories
+(coxgraph_tpu/eval/mission.py).
 
-Run: python examples/two_robot_demo.py [--frames N] [--cpu]
+Run: python examples/two_robot_demo.py [--frames N] [--scale S] [--cpu]
+                                       [--out DIR]
 """
 
 import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -20,7 +21,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--out", default="/tmp/coxgraph_demo2")
+    ap.add_argument("--out", default=None,
+                    help="directory for the PLY mesh and TUM trajectories")
     ap.add_argument("--scale", type=float, default=0.25)
     ap.add_argument("--reg-weight", type=float, default=30.0)
     ap.add_argument("--skip-mesh", action="store_true")
@@ -32,157 +34,31 @@ def main():
     runtime.enable_compilation_cache()
 
     import jax
-    import jax.numpy as jnp
-    import numpy as np
 
-    from coxgraph_tpu.core import geometry as geo, voxel as vx
-    from coxgraph_tpu.eval import export, metrics
-    from coxgraph_tpu.frontends import loop_detector as ld
-    from coxgraph_tpu.frontends import synthetic as syn
-    from coxgraph_tpu.frontends.vio_interface import VIOInterface
-    from coxgraph_tpu.mapper import submap_mapper as sm
-    from coxgraph_tpu.ops import features as ft, tsdf as tsdf_ops
-    from coxgraph_tpu.server import fusion_server as fs
-    from coxgraph_tpu.server.client_interface import InProcessClient
+    from coxgraph_tpu.eval.mission import two_robot_mission
 
-    os.makedirs(args.out, exist_ok=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
     print(f"backend: {jax.default_backend()}")
-    dt = 0.05
-    n = args.frames
-
-    # pool sizing: per-client HBM = max_submaps × max_blocks × 80 KB
-    spec = vx.VoxelGridSpec(voxel_size=0.05, voxels_per_side=16, grid_dim=64,
-                            max_blocks=2048, truncation=0.15)
-    cfg = sm.MapperConfig(
-        spec=spec,
-        integrator=tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=1024),
-        intrinsics=syn.PinholeIntrinsics().scaled(args.scale),
-        max_submaps=8, max_history=256,
-        submap_interval=n * dt / 6,
-    )
-    scene = syn.default_scene()
-    # two robots, overlapping sweeps, distinct odom frames (yaw+offset)
-    trajs = [
-        syn.orbit_trajectory(n, scene.room_center, radius=2.4,
-                             sweep=1.2 * jnp.pi, start_angle=0.0),
-        syn.orbit_trajectory(n, scene.room_center, radius=2.4,
-                             sweep=1.2 * jnp.pi, start_angle=jnp.pi),
-    ]
-    X = [geo.identity(),
-         geo.from_xyzyaw(jnp.array([0.8, -0.4, 0.0, 0.5]))]
-    odoms = [
-        syn.noisy_odometry(jax.random.PRNGKey(r), trajs[r],
-                           rot_std=0.002, trans_std=0.005)
-        for r in range(2)
-    ]
-    # host copies: per-index eager device reads compile a fresh program per
-    # index constant on remote TPUs (see utils/hostops)
-    trajs_np = [np.asarray(t) for t in trajs]
-    odoms_np = [np.asarray(o) for o in odoms]
-    X_np = [np.asarray(x) for x in X]
-
-    clients = [InProcessClient(r, cfg, sm.create_mapper(cfg))
-               for r in range(2)]
-    server = fs.CoxgraphServer(
-        fs.ServerConfig(
-            spec=spec, max_submaps=48, refuse_interval=0.15,
-            registration_weight=args.reg_weight,
-            # the reference's std::async PGO: fusions return immediately
-            # and robots keep streaming frames while the solve runs on a
-            # background thread (coxgraph_server.cpp:471-473)
-            async_pgo=True,
-            registration=fs.reg.RegistrationConfig(max_points=1024,
-                                                   iterations=10)),
-        clients)
-    vios = [VIOInterface(r, cfg, clients[r], server) for r in range(2)]
-    detector = ld.LoopDetector(
-        cfg.intrinsics,
-        ld.LoopDetectorConfig(
-            features=ft.FeatureConfig(max_keypoints=384),
-            min_match_score=25, min_inliers=15,
-            keyframe_stride=4 * dt, min_time_separation=1e9))
-
-    t0 = time.time()
-    n_fusions = 0
-    fusion_dispatch = 0.0       # time the stream thread spent in fusions
-    for i in range(n):
-        for r in range(2):
-            depth, color = syn.render_depth(scene, cfg.intrinsics,
-                                            jnp.asarray(trajs_np[r][i]))
-            T_odom_cam = jnp.asarray(geo.compose_np(
-                geo.inverse_np(X_np[r]), odoms_np[r][i]))
-            vios[r].update_pose(T_odom_cam, i * dt, depth, color)
-            for mf in detector.add_keyframe(r, i * dt, color, depth):
-                if vios[r].need_to_fuse(mf.from_client, mf.to_client,
-                                        mf.to_time):
-                    tf0 = time.time()
-                    ok = vios[r].publish_loop_closure(
-                        mf.from_client, mf.from_time, mf.to_client,
-                        mf.to_time, mf.T_from_to)
-                    fusion_dispatch += time.time() - tf0
-                    if ok:
-                        n_fusions += 1
-    server.wait_for_optimize()   # land the last background solve
-    wall = time.time() - t0
-    print(f"streamed {2 * n} frames in {wall:.1f}s "
-          f"({2 * n / wall:.1f} fps), {n_fusions} map fusions accepted, "
-          f"{len(server.submaps)} server submaps")
-    assert n_fusions > 0, "no cross-robot fusion happened"
-    assert not server.optimize_errors, server.optimize_errors
-    # async-PGO overlap: solve wall-clock that ran CONCURRENTLY with
-    # frame streaming = total solve time minus what fusions cost the
-    # stream thread (dispatch + wait-for-previous)
-    solve_wall = sum(f.get("solve_wall", 0.0) for f in server.fusion_log)
-    overlap = max(0.0, solve_wall - fusion_dispatch)
-    print(f"async PGO: {solve_wall:.1f}s of solve, {fusion_dispatch:.1f}s "
-          f"charged to the stream loop -> {overlap:.1f}s overlapped "
-          f"with integration")
-
-    # client-frame alignment quality
-    err = geo.se3_log(geo.relative(server.T_G_cli[1], X[1]))
-    print(f"client-1 frame alignment error: rot {np.linalg.norm(err[:3]):.4f} "
-          f"trans {np.linalg.norm(err[3:]):.4f}")
-
-    if args.skip_mesh:
-        # iteration mode: collect + final optimize without paying for the
-        # mesh (the non-skip path gets both inside get_final_global_mesh)
-        server.collect_all_submaps()
-        if len(server.submaps) >= 2:
-            server.optimize()
-        verts = np.zeros((1001, 3, 3), np.float32)
-        sdf = np.zeros((9,), np.float32)
-    else:
-        merged, verts, cols = server.get_final_global_mesh(
-            os.path.join(args.out, "global_mesh.ply"),
-            mesh_spec=vx.VoxelGridSpec(
-                voxel_size=spec.voxel_size, voxels_per_side=16, grid_dim=64,
-                max_blocks=6144, truncation=spec.truncation))
-        sdf = np.abs(np.asarray(
-            syn.scene_sdf(scene, jnp.asarray(verts.reshape(-1, 3)))))
-        print(f"global mesh: {verts.shape[0]} tris, surface err "
-              f"p50 {np.median(sdf) * 100:.1f} cm "
-              f"p90 {np.quantile(sdf, 0.9) * 100:.1f} cm")
-
-    ates = []
-    for r in range(2):
-        stamps, poses = server.pose_history(r)
-        order = np.argsort(stamps)
-        gt_stamps = np.arange(n) * dt
-        ate = metrics.ate_rmse(stamps[order], np.asarray(poses)[order],
-                               gt_stamps, np.asarray(trajs[r]), align=False)
-        ates.append(ate)
-        export.write_tum_trajectory(
-            os.path.join(args.out, f"client{r}.tum"),
-            stamps[order], np.asarray(poses)[order])
+    m = two_robot_mission(args.frames, args.scale, args.reg_weight,
+                          args.out, with_mesh=not args.skip_mesh)
+    print(f"streamed {2 * args.frames} frames in {m['stream_wall_s']:.1f}s, "
+          f"{m['fusions']} map fusions accepted, "
+          f"{m['server_submaps']} server submaps")
+    print(f"async PGO: {m['solve_wall_s']:.1f}s of solve, "
+          f"{m['fusion_dispatch_s']:.1f}s charged to the stream loop")
+    print(f"client-1 frame alignment error: rot {m['client1_align_rot']:.4f} "
+          f"trans {m['client1_align_trans']:.4f}")
+    for r, ate in enumerate(m["ate_m"]):
         print(f"client {r}: global-frame ATE {ate * 100:.2f} cm")
-
-    total_mb = sum(c.bytes_sent for c in clients) / 1e6
-    print(f"submap bytes shipped: {total_mb:.1f} MB "
-          f"({len(server.submaps)} submaps, send-once)")
-    # gate sized to the measured operating point (~6.5-6.7 cm ATE on both
-    # TPU and CPU runs), not a loose ceiling: a 2x regression fails
-    ok = (max(ates) < 0.13 and verts.shape[0] > 1000
-          and np.quantile(sdf, 0.9) < 4 * spec.voxel_size)
+    ok = (m["fusions"] > 0 and not m["optimize_errors"]
+          and max(m["ate_m"]) < 0.13)
+    if not args.skip_mesh:
+        print(f"global mesh: {m['mesh_tris']} tris, surface err "
+              f"p50 {m['surface_err_p50_m'] * 100:.1f} cm "
+              f"p90 {m['surface_err_p90_m'] * 100:.1f} cm")
+        # 4 voxels (5 cm each)
+        ok = ok and m["mesh_tris"] > 1000 and m["surface_err_p90_m"] < 0.2
     print("DEMO", "PASS" if ok else "FAIL")
     return 0 if ok else 1
 

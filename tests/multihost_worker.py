@@ -42,9 +42,9 @@ def main():
     new_fleet, poses = fl.fleet_optimize(CFG, mesh, fleet, inter, scfg)
     np.save(out, np.asarray(poses))
 
-    # timed WARM re-solve (2-host weak-scaling methodology,
-    # docs/PERFORMANCE.md "Two-process scaling"): same compiled program,
-    # readback-fenced; the parent compares against a 1-process run
+    # timed WARM re-solve (2-host weak-scaling methodology): same
+    # compiled program, readback-fenced; the parent compares against a
+    # 1-process run
     import time
     t0 = time.perf_counter()
     _, poses2 = fl.fleet_optimize(CFG, mesh, new_fleet, inter, scfg)

@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from coxgraph_tpu.core import geometry as geo
 from coxgraph_tpu.frontends import loop_detector as ld
@@ -170,3 +171,63 @@ def test_batched_ingest_cross_robot():
         T_true = geo.relative(Ta, Tb)
         err = geo.se3_log(geo.relative(jnp.asarray(m.T_from_to), T_true))
         assert float(jnp.linalg.norm(err[3:])) < 0.08, np.asarray(err)
+
+
+def test_full_width_frames_give_no_false_closure():
+    """At 640×480 the two robots' first keyframes face opposite walls of
+    the synthetic room, whose repeated texture matched with the 31-px
+    BRIEF patch at full width as a confident 180° closure (8 m off). The
+    detector works at its own width (LoopDetectorConfig.max_width), so
+    every closure it emits is true, and it still finds the revisits."""
+    n, dt = 40, 0.05
+    scene = syn.default_scene()
+    intr = syn.PinholeIntrinsics()
+    trajs = [np.asarray(syn.orbit_trajectory(
+        n, scene.room_center, radius=2.4, sweep=1.2 * jnp.pi,
+        start_angle=a)) for a in (0.0, jnp.pi)]
+    det = ld.LoopDetector(intr, ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=384), min_match_score=25,
+        min_inliers=15, keyframe_stride=4 * dt, min_time_separation=1e9,
+        max_keyframes=64))
+    assert det.det_intr.width == 160
+    found = []
+    for i in range(0, n, 4):
+        for r in range(2):
+            d, c = syn.render_depth(scene, intr, jnp.asarray(trajs[r][i]))
+            found.extend(det.add_keyframe(r, i * dt, c, d))
+    assert found, "no cross-robot revisit detected at full width"
+    for m in found:
+        T_true = geo.relative_np(trajs[m.from_client][round(m.from_time / dt)],
+                                 trajs[m.to_client][round(m.to_time / dt)])
+        err = np.asarray(geo.se3_log(jnp.asarray(geo.relative_np(
+            T_true, np.asarray(m.T_from_to)))))
+        assert np.linalg.norm(err[:3]) < 0.02, (m.from_time, m.to_time, err)
+        assert np.linalg.norm(err[3:]) < 0.05, (m.from_time, m.to_time, err)
+
+
+@pytest.mark.parametrize("width,max_width,stride", [
+    (640, 160, 4), (320, 160, 2), (160, 160, 1), (480, 160, 3),
+    (640, 0, 1)])
+def test_detection_resolution(width, max_width, stride):
+    """Frames wider than max_width are decimated by width // max_width;
+    the detection intrinsics describe the decimated pixel lattice, so a
+    decimated pixel backprojects along the ray of the full-resolution
+    pixel it was taken from."""
+    intr = syn.PinholeIntrinsics().scaled(width / 640)
+    det = ld.LoopDetector(intr, ld.LoopDetectorConfig(max_width=max_width))
+    di = det.det_intr
+    assert det.stride == stride
+    assert (di.width, di.height) == (-(-intr.width // stride),
+                                     -(-intr.height // stride))
+    u, v = np.meshgrid(np.arange(di.width), np.arange(di.height))
+    np.testing.assert_allclose((u - di.cx) / di.fx,
+                               (stride * u - intr.cx) / intr.fx, atol=1e-9)
+    np.testing.assert_allclose((v - di.cy) / di.fy,
+                               (stride * v - intr.cy) / intr.fy, atol=1e-9)
+    depth = jnp.arange(intr.height * intr.width, dtype=jnp.float32).reshape(
+        intr.height, intr.width)
+    color = jnp.stack([depth] * 3, -1)
+    c, d = det._decimate(color, depth)
+    assert d.shape == (di.height, di.width) and c.shape == d.shape + (3,)
+    np.testing.assert_array_equal(
+        np.asarray(d), np.asarray(depth)[::stride, ::stride])

@@ -229,11 +229,12 @@ def test_host_mapper_step_batch_matches_steps():
                             jnp.stack(list(traj)), ts)
     assert starts_a == starts_b
     assert a.n_submaps == b.n_submaps
-    # the windowed working-set path compiles the pose math in a
-    # different program structure than the per-frame path, so pixels on
-    # rounding boundaries may project one pixel apart — equivalence is
-    # numerical, not bitwise: near-exact almost everywhere with a tiny
-    # fraction of boundary voxels seeing a different depth sample
+    # XLA compiles the window's frame loop differently from the
+    # single-frame program (fused multiply-adds land elsewhere), and
+    # step_batch composes the window's submap-frame poses in one vmapped
+    # batch, so voxels on pixel-rounding boundaries may sample the
+    # neighbouring pixel — equivalence is numerical, not bitwise:
+    # near-exact almost everywhere
     sa = np.asarray(a.state.collection.layers.sdf)
     sb = np.asarray(b.state.collection.layers.sdf)
     np.testing.assert_allclose(sb, sa, atol=5e-3)

@@ -46,8 +46,7 @@ def test_matches_projective_integrator():
     pts, cols, valid = _cloud_from_depth(depth, color)
 
     proj = tsdf_ops.integrate_frame(
-        SPEC, tsdf_ops.TsdfIntegratorConfig(
-            max_touched_blocks=512, use_pallas=False),
+        SPEC, tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=512),
         INTR, vx.create_tsdf_layer(SPEC), depth, color, T)
 
     cfg = pts_ops.PointIntegratorConfig(max_touched_blocks=512)

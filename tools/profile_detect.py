@@ -1,12 +1,12 @@
-"""Decompose the loop-detector ingest batch cost on the real chip.
+"""Decompose the loop-detector ingest batch cost on the device.
 
-The round-5 endurance pipeline spends ~27.8 s in the detect stage
-(96.7 ms/keyframe at 8-frame fused batches).  This harness times the
+The detect stage is a large share of the endurance pipeline's wall
+(tools/endurance_run.py). This harness times the
 three device programs of one ingest batch separately — detect+describe,
 fused match+verify, donated batch-append — at the endurance operating
 point (pool 512, K=384, match_chunk=64, batch 8), with honest readback
 fences, so optimization effort lands on the dominant phase instead of
-guesses (docs/PERFORMANCE.md measurement discipline).
+guesses.
 
 Run: python tools/profile_detect.py [--cpu] [--pool 512] [--fill 288]
 """
